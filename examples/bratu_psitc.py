@@ -16,14 +16,14 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from janus_tpu.control import newton_krylov, psitc
 
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+from janus_tpu import config  # noqa: E402
+
+config.use_default_dtype()
 
 N = 48
 LAMS = jnp.array([0.5, 1.0, 2.0, 3.0, 3.4])
@@ -69,4 +69,5 @@ def main():
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

@@ -12,12 +12,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
-import jax
+from janus_tpu import config  # noqa: E402
 
-# written for f64 tolerances: enable x64 off-chip (on TPU prefer the f32
-# configs in the newer examples)
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+config.use_default_dtype()
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,4 +58,5 @@ def main():
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

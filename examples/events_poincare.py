@@ -12,7 +12,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -20,9 +19,9 @@ from janus_tpu.models.problems import vdp_rhs, vdp_jac
 from janus_tpu.solve import EVENT_TERMINATED, Options, solve_ivp
 from janus_tpu.solve.events import Event
 
-ON_TPU = jax.default_backend() == "tpu"
-if not ON_TPU:
-    jax.config.update("jax_enable_x64", True)
+from janus_tpu import config  # noqa: E402
+
+config.use_default_dtype()
 
 
 def main():
@@ -35,9 +34,7 @@ def main():
     def crossing(t, y, args):
         return y[:, 0]                       # section x1 = 0
 
-    # f32 on chip: rtol 1e-6 with compensated accumulation; f64 on CPU
-    opts = (Options(rtol=1e-6, atol=1e-9, pivoting=False, compensated=True)
-            if ON_TPU else Options(rtol=1e-8, atol=1e-10))
+    opts = Options(rtol=1e-8, atol=1e-10)
     sol = solve_ivp(vdp_rhs, (0.0, 50.0), y0, method="radau", args=mus,
                     jac=vdp_jac, options=opts,
                     events=Event(crossing, terminal=True, direction=-1.0))
@@ -55,4 +52,5 @@ def main():
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

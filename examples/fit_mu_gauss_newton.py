@@ -23,8 +23,9 @@ from janus_tpu.models.problems import vdp_rhs, vdp_jac
 from janus_tpu.solve import Options, SUCCESS
 from janus_tpu.solve.radau import solve_radau
 
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+from janus_tpu import config  # noqa: E402
+
+config.use_default_dtype()
 
 HORIZONS = (0.4, 0.8, 1.2)
 
@@ -44,7 +45,7 @@ def observe(mus, opts):
 def main():
     rng = np.random.RandomState(0)
     m = 256
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    dtype = config.solver_dtype()
     mu_true = jnp.asarray(10.0 ** rng.uniform(0.8, 2.2, m), dtype)
     opts = Options(rtol=1e-7 if dtype == jnp.float64 else 1e-5,
                    atol=1e-10 if dtype == jnp.float64 else 1e-8,
@@ -87,4 +88,5 @@ def main():
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

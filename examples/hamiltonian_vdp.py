@@ -10,7 +10,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -19,12 +18,10 @@ from janus_tpu.jet.solve import solve_with_sensitivities
 from janus_tpu.models.problems import vdp_hamiltonian
 from janus_tpu.solve import solve_ivp, Options
 
-# f64 tolerances below need a CPU/f64 backend; on chip run f32-appropriate
-ON_TPU = jax.default_backend() == "tpu"
-if not ON_TPU:
-    jax.config.update("jax_enable_x64", True)
-RTOL, ATOL, CHECK_RTOL = ((1e-5, 1e-8, 1e-3) if ON_TPU
-                          else (1e-8, 1e-11, 1e-6))
+from janus_tpu import config  # noqa: E402
+
+config.use_default_dtype()
+RTOL, ATOL, CHECK_RTOL = 1e-8, 1e-11, 1e-6
 
 
 def main():
@@ -54,4 +51,5 @@ def main():
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

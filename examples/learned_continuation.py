@@ -4,7 +4,7 @@ The reference closes an ML loop around its continuation solvers
 (reference examples/python/sssc_ml_vdp.py:1-132: generate homotopy run data,
 train the DeltaNet MLP sssc_dnn_vdp_model.py:54-62 to predict the largest
 safe continuation step Δλ_max, drive the solver with it). Same loop here,
-batched TPU-style:
+batched:
 
 1. DATA: for a training family of problem instances, probe — in ONE batched
    Newton correction over (instance × λ-grid × candidate-Δλ) lanes — which

@@ -24,8 +24,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
 import jax
 
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+from janus_tpu import config  # noqa: E402
+
+config.use_default_dtype()
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -125,4 +126,5 @@ def main(steps=400, seed=0, verbose=True, reg=0.0):
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

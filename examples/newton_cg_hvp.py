@@ -27,8 +27,9 @@ import numpy as np
 from janus_tpu.control import newton_cg
 from janus_tpu.solve import Options, radau_adjoint, radau_hvp
 
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+from janus_tpu import config  # noqa: E402
+
+config.use_default_dtype()
 
 RHO = 0.2
 T = 4.0
@@ -72,7 +73,7 @@ def make_problem(dtype):
 
 
 def main(newton_iters=8):
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    dtype = config.solver_dtype()
     loss, hvp = make_problem(dtype)
     # jit every solver-touching entry point: un-jitted calls re-TRACE the
     # whole custom-vjp solve each time (minutes instead of milliseconds)
@@ -105,4 +106,5 @@ def main(newton_iters=8):
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

@@ -3,10 +3,10 @@ gather role, SURVEY §2.5).
 
 The reference fans a homotopy grid over a process pool
 (vdp_pmp_transient_multishoot.py:801) and gathers per-rank PETSc solves over
-MPI (mpi_petsc_test.py). TPU-native: the sweep IS the batch axis, sharded
-over a device mesh with NamedSharding — XLA partitions the one lockstep
-while_loop across chips, no per-rank code. Runs on any device count: real
-TPU pod slice or the virtual CPU mesh (set
+MPI (mpi_petsc_test.py). Here the sweep IS the batch axis, sharded over a
+device mesh with NamedSharding — XLA partitions the one lockstep
+while_loop across devices, no per-rank code. Runs on any device count: the
+GPUs of one host or the virtual CPU mesh (set
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu).
 """
 
@@ -24,9 +24,9 @@ from janus_tpu.parallel import make_mesh, shard_batch
 from janus_tpu.solve import Options, SUCCESS
 from janus_tpu.solve.radau import solve_radau
 
-ON_TPU = jax.default_backend() == "tpu"
-if not ON_TPU:
-    jax.config.update("jax_enable_x64", True)
+from janus_tpu import config  # noqa: E402
+
+config.use_default_dtype()
 
 
 def main():
@@ -39,8 +39,7 @@ def main():
     y0 = jnp.tile(jnp.array([[2.0, 0.0]]), (m, 1))
     y0, mus = shard_batch((y0, mus), mesh)
 
-    # f32 at rtol 1e-6 on chip needs the compensated (double-word) path
-    opts = Options(rtol=1e-6, atol=1e-9, pivoting=False, compensated=ON_TPU)
+    opts = Options(rtol=1e-6, atol=1e-9, pivoting=False)
 
     @jax.jit
     def sweep(y0, mus):
@@ -59,4 +58,5 @@ def main():
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

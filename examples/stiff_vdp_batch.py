@@ -1,7 +1,6 @@
 """Massively batched stiff Van der Pol with forward sensitivities.
 
-The headline workload (BASELINE config: 65k trajectories, μ=1e3). Run on a
-TPU chip this sustains ~1M traj/s without sensitivities, ~200k with.
+The headline workload (BASELINE config: 65k trajectories, μ=1e3).
 
   python examples/stiff_vdp_batch.py [batch]
 """
@@ -17,13 +16,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from janus_tpu import config
 from janus_tpu.solve import Options
 from janus_tpu.solve.radau import solve_radau
 from janus_tpu.models.problems import vdp_rhs, vdp_jac
 
 
 def main(batch=65536):
-    dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+    dtype = config.use_default_dtype()
     rtol, atol = (1e-4, 1e-7) if dtype == jnp.float32 else (1e-8, 1e-11)
     y0 = jnp.tile(jnp.array([[2.0, 0.0]], dtype), (batch, 1))
     # heterogeneous stiffness across the batch
@@ -50,4 +50,5 @@ def main(batch=65536):
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main(int(sys.argv[1]) if len(sys.argv) > 1 else 65536)

@@ -1,13 +1,13 @@
 """End-to-end L4 workflow: learn a neural-network Hamiltonian from solver data.
 
 The reference's NN pipeline (vdp_sssc_data.py → CSV → sssc_dnn_vdp_model.py)
-re-done with the full TPU-native stack:
+re-done with the full batched stack:
 
 1. generate ground-truth flow segments with the adaptive Radau solver;
 2. persist them through the native binary dataset IO (C++ traj_write);
 3. train an MLP Hamiltonian through the checkpointed fixed-step integrator
    (reverse-mode AD through the solve);
-4. checkpoint with orbax; verify the learned field on held-out states.
+4. checkpoint (npz); verify the learned field on held-out states.
 
   python examples/train_nn_hamiltonian.py
 """
@@ -21,10 +21,9 @@ import tempfile
 
 import jax
 
-# written for f64 tolerances: enable x64 off-chip (on TPU prefer the f32
-# configs in the newer examples)
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+from janus_tpu import config  # noqa: E402
+
+config.use_default_dtype()
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -105,4 +104,5 @@ def main(steps=400, m=256, dt=0.5, workdir=None):
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

@@ -3,7 +3,7 @@
 The reference's flagship L3 workload solves for the final time itself with
 the transversality condition H(tF) = 0 in the shooting residual — unknowns
 [p10, p20, tF] (reference examples/python/vdp_pmp_transient_multishoot.py:
-380-401; vdp_sssc_minT.py). TPU redesign:
+380-401; vdp_sssc_minT.py). Batched redesign:
 
   minimize  J = tF
   s.t.      ẋ1 = x2,  ẋ2 = μ(1−x1²)x2 − x1 + u,  |u| ≤ umax,
@@ -32,8 +32,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
 import jax
 
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+from janus_tpu import config  # noqa: E402
+
+config.use_default_dtype()
 import jax.numpy as jnp
 import numpy as np
 
@@ -285,4 +286,5 @@ def main():
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

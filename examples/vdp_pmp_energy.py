@@ -1,7 +1,7 @@
 """Energy-optimal control of Van der Pol to the origin via PMP shooting.
 
 The reference's L3 flagship family (vdp_pmp_transient_multishoot.py) solved
-with the TPU-native stack: smooth PMP Hamiltonian, costate dynamics by AD,
+with the batched stack: smooth PMP Hamiltonian, costate dynamics by AD,
 batched single/multiple shooting with forward-AD Newton, and homotopy in the
 stiffness μ (solve the easy linear problem first, continue to the target μ).
 
@@ -15,12 +15,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo root
 
-import jax
+from janus_tpu import config  # noqa: E402
 
-# written for f64 tolerances: enable x64 off-chip (on TPU prefer the f32
-# configs in the newer examples)
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+config.use_default_dtype()
 import jax.numpy as jnp
 import numpy as np
 
@@ -120,4 +117,5 @@ def main():
 
 
 if __name__ == "__main__":
+    config.enable_compile_cache()
     main()

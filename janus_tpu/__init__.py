@@ -1,4 +1,4 @@
-"""janus-tpu: TPU-native massively-batched stiff ODE solving with forward sensitivities.
+"""janus-tpu: massively-batched stiff ODE solving with forward and reverse sensitivities.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of optstat/janus-ode
 (reference: /root/reference — see SURVEY.md):
@@ -9,7 +9,7 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of optstat/janus-ode
 - ``ham``     — Hamiltonian calculus: dynamics [ṗ, ẋ] and Jacobians from a user scalar
                 H(x, p[, u], W) via grad/jacfwd composition (replaces the ~40-function
                 derivative zoo in reference src/cpp/janus_ode_common.hpp:178-2410).
-- ``linalg``  — batched small-matrix LU factor/solve tuned for XLA/TPU (the
+- ``linalg``  — batched small-matrix LU factor/solve vectorized over the batch (the
                 janus-linear role), with custom JVP dx = A⁻¹(db − dA·x)
                 (reference: solve_LUdual, src/cpp/radauted_impl.hpp:1901-1936).
 - ``solve``   — lockstep masked adaptive steppers (Dopri5/Dopri853, Radau IIA,
@@ -18,7 +18,10 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of optstat/janus-ode
                 (SER-A/SER-B), homotopy, augmented Lagrangian.
 - ``models``  — problem library (Van der Pol, harmonic oscillator, Dubins, LQR,
                 neural-network Hamiltonians).
-- ``parallel``— mesh/sharding of the batch axis (pjit/NamedSharding over ICI/DCN).
+- ``parallel``— mesh/sharding of the batch axis (NamedSharding over the devices).
+- ``ops``     — the stage-LU Pallas kernel for the GPU (Triton route).
+- ``config``  — platform policy: dtype, kernel choice, tridiagonal dispatch,
+                compile cache.
 - ``diag``    — solver statistics and per-step playback logs (StatsTe/DynTe role).
 """
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Callable
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 

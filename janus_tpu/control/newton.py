@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 

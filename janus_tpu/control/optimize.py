@@ -7,7 +7,7 @@ NN-Hamiltonian parameter counts. Each outer iteration runs truncated CG
 (Steihaug: stops at negative curvature or the trust-region-like step cap)
 on H d = −g, then an Armijo backtracking line search along the Newton
 direction with a gradient-descent fallback when the model is locally
-nonconvex. This is the TPU-native counterpart of the reference's
+nonconvex. This is the batched counterpart of the reference's
 PETSc/Tao-style outer optimizers (SURVEY §2.4 petsc_* roles) upgraded to
 exact second-order information — the reference has no second-order
 machinery at all.

@@ -1,14 +1,14 @@
-"""Krylov preconditioners (the reference's GMRES+ILU role, TPU-native).
+"""Krylov preconditioners (the reference's GMRES+ILU role, batched).
 
 The reference pairs GMRES with ILU factorizations
 (src/python/odesolvers/linsolve.py:60-111) and PETSc shell preconditioners
 (examples/cpp/vdp_shell.cpp). ILU is a sequential sparse triangular sweep —
-the wrong shape for XLA/TPU. The same *role* (cheap approximate inverse that
+the wrong shape for batched XLA code. The same *role* (cheap approximate inverse that
 clusters the spectrum) maps here onto structures the hardware likes:
 
 - **block-Jacobi**: the Jacobian's diagonal blocks, probed with `block`
   colored jvp's (Curtis–Powell–Reid style) and factored with the repo's
-  batched unrolled LU — [M, nb, b, b] batched MXU/VPU work, zero gathers.
+  batched unrolled LU — [M, nb, b, b] batched elementwise work, zero gathers.
 - **tridiagonal**: the three diagonals probed with 3 colored jvp's, applied
   with a Thomas sweep under `lax.scan` (each scan step is an [M]-vectorized
   elementwise op — sequential in N but trivially wide in the batch).
@@ -127,7 +127,7 @@ def block_jacobi_precond(f: Callable, x, block: int) -> Callable:
 
     f: [M, N] -> [M, N]; N must be divisible by ``block``. Costs ``block``
     jvp's to build + one batched LU of [M·nb, b, b]; each application is two
-    batched triangular sweeps (pure VPU work). Exact when J is block
+    batched triangular sweeps (pure elementwise work). Exact when J is block
     diagonal w.r.t. the partition; the standard colored approximation
     otherwise.
     """
@@ -160,8 +160,8 @@ def tridiag_solve(dl, d, du, b):
     """Batched Thomas algorithm: solve T x = b with T tridiagonal.
 
     dl/d/du/b: [..., N] (dl[..., 0] and du[..., -1] ignored). Sequential in
-    N via two `lax.scan` sweeps whose steps are [...]-vectorized — on TPU the
-    batch axis keeps the VPU full. No pivoting (preconditioner use).
+    N via two `lax.scan` sweeps whose steps are [...]-vectorized over the
+    batch. No pivoting (preconditioner use).
     """
     def safe(x):
         return jnp.where(x == 0.0, jnp.ones_like(x), x)

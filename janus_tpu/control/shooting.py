@@ -3,7 +3,7 @@
 The reference's shooting solves segments sequentially per process
 (vdp_pmp_transient_multishoot.py:240-334: scipy solve_ivp per segment;
 multi_shooting_petsc.cpp:152-161: per-segment TSRK inside a SNES residual).
-TPU redesign: ALL segments of ALL instances integrate in one lockstep batch —
+Batched redesign: ALL segments of ALL instances integrate in one lockstep batch —
 an (M instances × S segments) solve is a single batched ``solve_ivp`` call of
 batch M·S — and the outer Newton differentiates through it in forward mode.
 """

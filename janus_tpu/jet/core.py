@@ -7,7 +7,7 @@ M trajectories of state dim D) and ``d.shape == (N, *S)`` — the sensitivity ax
 LEADING, unlike the reference's trailing layout (TensorDual r:[M,D], d:[M,D,N];
 reference src/cpp/radauted.hpp:241-296). A leading axis makes every tangent column
 an ordinary ``jax.jvp`` tangent, so generic lifting is a ``vmap`` over axis 0 of
-``d`` and XLA lays the N copies out contiguously for the VPU.
+``d`` and XLA lays the N copies out contiguously for vector units.
 
 Semantics: a Jet represents the family ``x(ε) = r + Σ_n ε_n d[n]`` to first order.
 All ops propagate d by the chain rule. Comparisons act on ``r`` only (branching on
@@ -325,9 +325,9 @@ def stack(jets, axis=0) -> Jet:
     )
 
 
-# XLA:TPU demotes plain f32 einsums to bf16 inputs on the MXU; solver-grade
-# dual arithmetic (Newton residuals, sensitivity contractions) needs full f32
-# (repo rule; debugged in round 1 — see CLAUDE.md and solve/radau.py).
+# XLA may run plain f32 einsums at reduced precision (TF32 on the GPU);
+# solver-grade dual arithmetic (Newton residuals, sensitivity contractions)
+# needs full f32 (repo rule — see CLAUDE.md and solve/radau.py).
 _PRECISION = jax.lax.Precision.HIGHEST
 
 

@@ -58,8 +58,8 @@ def dual_solve_ivp(f: Callable, tspan, y0, method: str = "radau",
                                     is_leaf=lambda a: isinstance(a, Jet))
 
     # fast path: the internal-differentiation sweep (tangents=/
-    # args_tangents=, measured 3× the vmap(jvp) transform) computes the
-    # same sensitivities in ONE primal solve. Radau — fixed-stage AND the
+    # args_tangents=) computes the same sensitivities in ONE primal solve,
+    # reusing each step's LU factors. Radau — fixed-stage AND the
     # variable-order ladder — takes t_eval AND events (event-time tangents
     # come back via Solution.sens_t); seulex/rodas/bdf are terminal-mode;
     # a Jet tf costs one extra rhs call (dy/dT = f(T, y(T))) unless
@@ -128,7 +128,7 @@ def dual_solve_ivp(f: Callable, tspan, y0, method: str = "radau",
         import warnings
         warnings.warn(
             "dual_solve_ivp: falling back to the vmapped-jvp transform "
-            f"(~3x slower than internal differentiation) because: "
+            f"(slower than internal differentiation) because: "
             f"{'; '.join(blockers)}", stacklevel=2)
 
     def primal(y0p, tfp, argsp):

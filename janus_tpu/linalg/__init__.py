@@ -8,10 +8,10 @@ loop!). Here:
 
 - ``lu_factor``/``lu_solve`` — unrolled partial-pivot LU fully vectorized over
   the batch (state dim D is small and static, so the elimination unrolls into
-  fused VPU ops — no per-sample loops, no host syncs);
+  fused elementwise ops — no per-sample loops, no host syncs);
 - complex systems use the split real/imag 2×2-block formulation (the reference
-  already splits: src/python/odesolvers/solvrad.py:22-43) — TPU-friendly, no
-  complex dtype;
+  already splits: src/python/odesolvers/solvrad.py:22-43) — no complex
+  dtype;
 - ``linsolve`` carries a custom JVP dx = A⁻¹(db − dA·x) that REUSES the
   factorization, so N sensitivity directions ride through each solve at the
   cost of N back-substitutions (the solve_LUdual capability, vectorized).

@@ -4,12 +4,12 @@ The reference swaps PETSc-GMRES closures in place of dense LU for the Radau
 stage systems (reference src/python/odesolvers/src/odesolvers/linsolve.py:61-110
 ``decom_rc_gmres``, consumed by prepare_step.py:36-48) — that is what makes it
 usable on method-of-lines PDE lines (examples/cpp/meinhart_pseudo_transient.cpp).
-This is the TPU-native equivalent: a fixed-iteration-count right-preconditioned
+This is the batched equivalent: a fixed-iteration-count right-preconditioned
 GMRES(k) whose Arnoldi/Givens recurrences are unrolled at trace time (static
 shapes, no data-dependent control flow) and whose inner products are batched
 over the M lanes — every lane runs the same k iterations in lockstep, the
-VPU/MXU stay full, and compile time is O(k²) small ops instead of the unrolled
-dense LU's O(D²).
+work stays batch-wide, and compile time is O(k²) small ops instead of the
+unrolled dense LU's O(D²).
 
 Breakdown-safe: zero residual or lucky breakdown produce zero rotations and a
 finite (already-converged) solution rather than NaN. Exhaustion-safe: when the
@@ -30,7 +30,7 @@ from typing import Callable, Optional
 import jax.numpy as jnp
 from jax import lax
 
-# XLA:TPU demotes f32 einsums to bf16 without this (CLAUDE.md convention)
+# f32 einsums must not run at reduced precision (TF32 on the GPU)
 _EINSUM_PRECISION = lax.Precision.HIGHEST
 
 
@@ -175,10 +175,10 @@ def tridiag_solve_pcr(dl, d, du, b):
     dominant systems), but the elimination is ceil(log2 N) fully
     vectorized sweeps over the whole [..., N] array instead of two
     sequential length-N scans: each sweep eliminates the couplings at
-    stride s (doubling s), leaving a diagonal system. On TPU the Thomas
-    scan's critical path is 2N tiny [...]-wide steps; PCR's is ~12·log2 N
-    elementwise ops on the full array — the VPU stays busy and the
-    sequential depth collapses (e.g. D=128: 256 scan steps → 7 sweeps).
+    stride s (doubling s), leaving a diagonal system. The Thomas scans'
+    critical path is 2N tiny [...]-wide steps; PCR's is ~12·log2 N
+    elementwise ops on the full array (e.g. D=128: 256 scan steps → 7
+    sweeps), at ~8× the FLOPs.
     """
     n = d.shape[-1]
     idx = jnp.arange(n)
@@ -251,21 +251,20 @@ def tridiag_solve_complex_pcr(dl, d, du, b):
 
 
 def tridiag_solve_auto(dl, d, du, b):
-    """Backend-dispatched tridiagonal solve: PCR on TPU (log-depth, keeps
-    the VPU busy — measured 3.5× on a D=128 MOL radau solve), Thomas scans
-    on CPU (PCR's ~8× FLOP multiplier loses there). Same results either
-    way; the choice is made at trace time from the default backend."""
-    import jax as _jax
+    """Tridiagonal solve by the method ``config.tridiag_method()`` picks
+    for the backend (Thomas scans or PCR sweeps). Same results either way;
+    the choice is made at trace time."""
+    from janus_tpu import config
     from janus_tpu.control.precond import tridiag_solve as _thomas
-    if _jax.default_backend() == "cpu":
+    if config.tridiag_method() == "thomas":
         return _thomas(dl, d, du, b)
     return tridiag_solve_pcr(dl, d, du, b)
 
 
 def tridiag_solve_complex_auto(dl, d, du, b):
     """Split-real complex twin of ``tridiag_solve_auto``."""
-    import jax as _jax
-    if _jax.default_backend() == "cpu":
+    from janus_tpu import config
+    if config.tridiag_method() == "thomas":
         return tridiag_solve_complex(dl, d, du, b)
     return tridiag_solve_complex_pcr(dl, d, du, b)
 

@@ -3,7 +3,7 @@
 The stiff stage matrices are tiny (state dim D ≲ 32) but there are tens of
 thousands of them (batch M). XLA's generic linalg path serializes or pads badly
 here; instead the elimination unrolls at trace time over the STATIC dimension D,
-so every operation is a fused [M, …] elementwise/VPU op — the batch axis is the
+so every operation is a fused [M, …] elementwise op — the batch axis is the
 vector axis. No per-sample loops (the reference's dual solve loops over the
 batch in C++, src/cpp/radauted_impl.hpp:1995-2010 — the main perf sin to avoid).
 """
@@ -19,9 +19,8 @@ import jax.numpy as jnp
 def _swap_rows_onehot(x, k, p, rows_idx):
     """Swap row k (static) with row p (dynamic, per batch) WITHOUT gathers.
 
-    TPU lowers dynamic gathers (take_along_axis) to serialized loops — a
-    measured 30-50x slowdown at batch 65k. One-hot select/reduce swaps are
-    pure VPU elementwise work instead.
+    One-hot select/reduce swaps are pure elementwise work that fuses with
+    the elimination, where a per-lane dynamic gather would not.
     """
     onehot = rows_idx == p[..., None]                       # [..., D]
     row_p = jnp.sum(jnp.where(onehot[..., None], x, 0.0), axis=-2)
@@ -44,9 +43,8 @@ def lu_factor(a, pivot: bool = True):
     rows_idx = jnp.arange(d)
     for k in range(d):
         if pivot:
-            # pivot search as an unrolled select tournament — argmax inside a
-            # loop makes the XLA:TPU compile time pathological (~500 s) and
-            # lowers poorly; pairwise where-selects are pure VPU work
+            # pivot search as an unrolled select tournament: pairwise
+            # where-selects are pure elementwise work (no argmax reduction)
             best_val = jnp.abs(lu[..., k, k])
             p = jnp.full(a.shape[:-2], k, jnp.int32)
             for i in range(k + 1, d):

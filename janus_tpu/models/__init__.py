@@ -1,4 +1,4 @@
-"""Problem library: the reference's recurring test systems, TPU-shaped."""
+"""Problem library: the reference's recurring test systems, batch-shaped."""
 
 from janus_tpu.models.problems import (
     harmonic_hamiltonian,

@@ -3,7 +3,7 @@
 The reference feeds piecewise-constant controls to its steppers as per-STEP
 parameter slabs (seulexted.py:17-27 ``nparams_step``; dopri853ted.hpp:224-229
 ``theta`` sliced by step count, with exhaustion errors :417-421). Step-indexed
-slabs are ill-defined under adaptive stepping, so the TPU-native counterpart
+slabs are ill-defined under adaptive stepping, so the batched counterpart
 is TIME-indexed: a [K]-knot schedule evaluated inside the RHS. (For fixed-grid
 training runs, ``solve.fixed.odeint_fixed(step_args=...)`` keeps the exact
 per-step-slab semantics.)

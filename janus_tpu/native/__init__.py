@@ -24,9 +24,13 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def _build() -> None:
+    # build beside the target and rename, so concurrent builders (test
+    # workers) never load a half-written library
+    tmp = _LIB.with_name(f".{_LIB.name}.{os.getpid()}")
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SRC),
-           "-o", str(_LIB)]
+           "-o", str(tmp)]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _LIB)
 
 
 def load() -> ctypes.CDLL:

@@ -1,16 +1,5 @@
-"""Pallas TPU kernels for the hot per-trajectory linear algebra.
+"""Pallas kernels for the GPU (Triton route) on the solvers' hot path."""
 
-Layout doctrine: a batch of small D×D systems is stored TRANSPOSED —
-[D·D, M] with the trajectory axis on the 128-wide lane dimension — so the
-unrolled elimination becomes pure VPU row arithmetic with perfect lane
-utilization (the AoS [M, D, D] layout wastes lanes on the tiny trailing dims).
-"""
+from janus_tpu.ops.smalllu_pallas import lu_factor, lu_solve, padded_shape
 
-from janus_tpu.ops.smalllu_pallas import (
-    lu_factor_t,
-    lu_solve_t,
-    linsolve_fused,
-    pallas_available,
-)
-
-__all__ = ["lu_factor_t", "lu_solve_t", "linsolve_fused", "pallas_available"]
+__all__ = ["lu_factor", "lu_solve", "padded_shape"]

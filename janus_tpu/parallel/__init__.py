@@ -3,7 +3,7 @@
 The reference parallelizes across problem instances with ProcessPoolExecutor
 and per-rank PETSc COMM_SELF solves + MPI gather (reference
 examples/python/mpi_petsc_test.py:1-40; vdp_pmp_transient_multishoot.py:801).
-TPU-native equivalent: shard the [M] batch axis over a ``jax.sharding.Mesh``
+Equivalent here: shard the [M] batch axis over a ``jax.sharding.Mesh``
 with NamedSharding — XLA inserts the collectives (reductions like global error
 norms become psum over ICI). A second optional ``model`` axis tensor-parallels
 neural-Hamiltonian hidden layers.

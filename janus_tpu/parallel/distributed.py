@@ -1,9 +1,10 @@
 """Multi-host initialization (the reference's MPI role, SURVEY §2.5).
 
 The reference's distribution is mpi4py/PETSc per-rank solves + gather
-(examples/python/mpi_petsc_test.py). TPU-native: ``jax.distributed`` across
-hosts; the batch mesh then spans all chips and collectives ride ICI within a
-slice and DCN across slices. On a single host this is a no-op.
+(examples/python/mpi_petsc_test.py). Here: ``jax.distributed`` across
+hosts; the batch mesh then spans every device of every process and XLA's
+collectives (NCCL on GPUs) carry the any() gates. On a single host this is
+a no-op.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ log = logging.getLogger("janus_tpu.distributed")
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
-    """Initialize multi-host JAX if configured (env-driven on TPU pods).
+    """Initialize multi-host JAX if configured (arguments or cluster env).
 
     Explicit arguments (or pod env vars) describe a genuine multi-process
     job: failures there are re-raised loudly — a misconfigured pod must not

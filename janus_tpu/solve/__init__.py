@@ -25,13 +25,15 @@ FEATURES = {
     "dopri853":     (False, False, True,  True),
     "radau":        (True,  True,  True,  True),
     "radaup":       (True,  True,  True,  True),
-    "radau_fused":  (False, False, False, False),
     "bdf":          (True,  True,  True,  True),
     "bdf2":         (True,  False, False, True),   # LEGACY: subsumed by bdf
     "seulex":       (True,  True,  True,  True),
     "rodas":        (True,  True,  True,  True),
     "grk4t":        (True,  False, False, True),   # LEGACY: subsumed by rodas
 }
+
+# methods whose stage LU can run the Pallas kernel (Options.pallas_lu)
+_KERNEL_LU_METHODS = ("radau", "rodas", "bdf", "seulex")
 
 _ALIASES = {
     "rk45": "dopri5", "dop853": "dopri853",
@@ -73,7 +75,6 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
     method  : 'dopri5' | 'dopri853'                  (explicit, PI control)
               'radau' | 'radau5'/'radau9'/'radau13'  (Radau IIA, fixed order)
               'radaup'                               (per-lane variable order)
-              'radau_fused'                          (one-Pallas-kernel step)
               'bdf'                                  (variable-order NDF 1-5)
               'bdf_classic'                          (same, classical BDF
                                                       error constants)
@@ -90,7 +91,7 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
               sensitivities by internal differentiation (radau fixed-stage
               AND the variable-order ladder, both composing with
               t_eval/events; seulex/rodas/bdf in terminal mode; returned
-              in Solution.sens; measured ~3× the vmapped-jvp transform).
+              in Solution.sens; reuses each step's LU factors).
               Any method also differentiates via jax.jvp.
     quad    : optional running-cost integrand ``l(t[M], y[M,D], args) -> [M]``
               or ``[M, Q]``; ``Solution.quad`` = ∫ l dt accumulated at the
@@ -158,6 +159,10 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                          "'rodas', 'seulex', 'bdf' and "
                          "'dopri5'/'dopri853'; use t_eval= otherwise")
 
+    if options.pallas_lu and canonical not in _KERNEL_LU_METHODS:
+        raise ValueError(f"Options(pallas_lu=True) has no effect on method "
+                         f"{method!r}; its stage LU kernel serves "
+                         f"{_KERNEL_LU_METHODS}")
     if step_args is not None and canonical not in ("dopri5", "dopri853",
                                                    "seulex", "rodas",
                                                    "radau"):
@@ -182,6 +187,10 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
             # variable order by default: stages 1..7
             options = options.replace(min_stages=1, max_stages=7)
         if options.min_stages != options.max_stages:
+            if options.pallas_lu:
+                raise ValueError("Options(pallas_lu=True) runs with a fixed "
+                                 "stage count (e.g. method='radau9'); the "
+                                 "variable-order ladder has no kernel path")
             if step_args is not None:
                 raise ValueError("step_args= needs a fixed-stage radau "
                                  "(e.g. method='radau5'); the variable-"
@@ -198,9 +207,6 @@ def solve_ivp(f: Callable, tspan, y0, method: str = "dopri5", args: Any = None,
                            jac=jac, mass=mass, events=events,
                            tangents=tangents, args_tangents=args_tangents,
                            quad=quad, dense=dense, step_args=step_args)
-    if canonical == "radau_fused":
-        from janus_tpu.solve.radau_fused import solve_radau_fused
-        return solve_radau_fused(f, t0, tf, y0, args, options)
     if canonical == "bdf":
         from janus_tpu.solve.ndf import solve_bdf
         # variable-order 1-5 with the NDF kappas (as scipy's BDF)

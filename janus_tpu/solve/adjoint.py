@@ -17,7 +17,7 @@ sweep instead of K forward tangent directions — reverse mode at
 adaptive-solver cost. The reference has forward duals only
 (src/cpp/radauted_impl.hpp — no adjoint anywhere); this goes beyond it.
 
-Design notes (TPU-first):
+Design notes (batched, lockstep):
 - the backward pass is a ``lax.scan`` over the step index k = S−1..0 with a
   per-lane live mask (lanes own different mesh lengths — same lockstep
   philosophy as the forward loop);

@@ -302,9 +302,8 @@ def dopri_adjoint(f: Callable, tspan, y0, args=None,
             # dead slots hold zeros; substitute a benign step whose
             # (masked) replay is the identity — its pull sees a zero
             # cotangent and contributes exact zeros. NOT cond-gated: the
-            # explicit replay is a handful of fused VPU ops, far below the
-            # per-cond kernel-dispatch overhead that dominated the chip
-            # reading (~150 us/iter with cond vs ~us of math — the inverse
+            # explicit replay is a handful of fused elementwise ops, far
+            # below a per-iteration cond's dispatch overhead (the inverse
             # of the radau-adjoint regime where per-slot LU work is large);
             # unroll amortizes the remaining per-iteration scan overhead.
             tk = jnp.where(live, mesh["t"][:, k], t0b)

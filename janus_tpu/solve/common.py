@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,11 +104,11 @@ class Solution:
         tq = jnp.clip(ts, lo[:, None], hi[:, None])    # [M, T]
         num = tq[:, None, :] - tm[:, :, None]                 # [M, N, T]
         theta = num / jnp.where(hm == 0.0, 1.0, hm)[:, :, None]
-        # membership tests in MULTIPLICATION form, not on theta: XLA:TPU
-        # divides via a*reciprocal(b) (not correctly rounded), so
-        # (tq−tm)/hm at a step boundary can miss 1.0 by an ulp and the
-        # final query point selects NO step (debugged on chip — the
-        # CLAUDE.md round-2 division rule). num·hm ≥ 0 ⟺ θ ≥ 0 and
+        # membership tests in MULTIPLICATION form, not on theta: a
+        # compiled division may be a*reciprocal(b) (not correctly
+        # rounded), so (tq−tm)/hm at a step boundary can miss 1.0 by an
+        # ulp and the final query point selects NO step (the CLAUDE.md
+        # division rule). num·hm ≥ 0 ⟺ θ ≥ 0 and
         # (num−hm)·hm < 0 ⟺ θ < 1 for either sign of hm (reverse time);
         # the endpoint test compares tq against tm+hm, the same rounding
         # that produced the t_stop clamp, so it is bit-exact.
@@ -326,7 +326,7 @@ def index_weights(opts, dim, dtype):
 def two_sum(a, b):
     """Error-free transform: a + b = s + err exactly (Knuth TwoSum, 6 flops).
     XLA preserves IEEE semantics (no unsafe reassociation), so this survives
-    compilation on CPU and TPU."""
+    compilation on CPU and GPU."""
     s = a + b
     bb = s - a
     err = (a - (s - bb)) + (b - bb)

@@ -1,7 +1,7 @@
 """Explicit Dormand–Prince solvers (Dopri5, Dopri853) — batched lockstep.
 
 Re-designs the reference's Dopri853TeD (src/cpp/dopri853ted.hpp:26-734,
-src/python/dopri853ted.py) the TPU way: a single ``lax.while_loop`` advances the
+src/python/dopri853ted.py) the batched way: a single ``lax.while_loop`` advances the
 whole batch; per-trajectory accept/reject, PI step control
 (reference control(): dopri853ted.hpp:523), and termination are ``jnp.where``
 selects on [M] masks instead of index_put_ scatter (dopri853ted.py:416-433).
@@ -15,11 +15,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 
-# f32 einsums must not be demoted to bf16 MXU passes on TPU
+# f32 einsums must not run at reduced precision (TF32 on the GPU)
 _EINSUM_PRECISION = jax.lax.Precision.HIGHEST
 import numpy as np
 
@@ -234,7 +234,7 @@ def solve_erk(tab: ERKTableau, f: Callable, t0, tf, y0, args=None,
     expanded EXACTLY into the shared power basis (rk45's dense form is
     already power-basis; dop853's mixed (θ, 1−θ) Horner cascade maps
     through a constant binomial-scale matrix — no node re-fitting, so the
-    expansion is f32-safe on chip) and ``Solution.interpolate(ts)``
+    expansion is f32-safe) and ``Solution.interpolate(ts)``
     evaluates the solution anywhere post hoc (scipy's ``sol.sol(t)`` role
     on RK45/DOP853). Size N above the worst lane's step count; overflowing
     lanes interpolate to NaN.

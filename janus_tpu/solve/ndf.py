@@ -30,11 +30,12 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from janus_tpu import config
 from janus_tpu.linalg.smalllu import lu_factor, lu_solve, lu_ok
 from janus_tpu.solve import common as cm
 from janus_tpu.solve.events import (handle_events, init_event_state,
@@ -78,11 +79,9 @@ _C_BDF_POW, _W_BDF_AT0 = _bdf_interp_power()
 
 
 # NOTE on contraction style: every tiny batched contraction here is written
-# as broadcast-multiply-sum, NOT einsum. XLA:TPU lowers batched einsums like
-# [M,6,6]x[M,6,6] onto the MXU padded to 128x128 tiles (~1e-4 utilization):
-# measured 134 us per call at M=8192, vs ~0 (fully fused VPU elementwise)
-# for the identical broadcast-sum form — this single lowering detail was 10x
-# of NDF's on-chip step cost (round 3; see CLAUDE.md).
+# as broadcast-multiply-sum, NOT einsum: the broadcast-sum form fuses into
+# the surrounding elementwise kernels, while a batched einsum of tiny
+# [M,6,6]x[M,6,6] matrices becomes a separate matrix-unit/library call.
 
 
 def _pick(vec, idx):
@@ -147,7 +146,7 @@ def _compose_ru(pmat, ru):
     """pmat <- pmat @ ru — appends a transform in APPLY order: _apply_ru
     computes D' = U.T @ D, so after V1 then V2 the total is (V1 @ V2).T @ D
     and the newest factor composes on the RIGHT. Broadcast-sum form — never
-    einsum two batched square tiny matrices on TPU (CLAUDE.md)."""
+    einsum two batched square tiny matrices (CLAUDE.md)."""
     return jnp.sum(pmat[:, :, :, None] * ru[:, None, :, :], axis=2)
 
 
@@ -317,11 +316,11 @@ def solve_bdf(f: Callable, t0, tf, y0, args=None,
     if opts.stage_solver not in ("lu", "gmres", "tridiag"):
         raise ValueError(f"unknown stage_solver {opts.stage_solver!r}")
     use_gmres = opts.stage_solver != "lu"
-    use_pallas = (opts.pallas_lu and not use_gmres
-                  and jax.default_backend() == "tpu")
-    if opts.pallas_lu and opts.pivoting:
-        raise ValueError("Options(pallas_lu=True) needs pivoting=False "
-                         "(the fused SoA kernel is pivot-free)")
+    use_pallas = config.use_stage_lu_kernel(opts)
+    if use_pallas and use_gmres:
+        raise ValueError("Options(pallas_lu=True) is the LU stage solver; "
+                         "it does not combine with stage_solver="
+                         f"{opts.stage_solver!r}")
     if use_gmres and jac is not None:
         raise ValueError("stage_solver='gmres' is matrix-free (J·v by jvp, "
                          "probed structure preconditioner); drop jac=")
@@ -476,8 +475,8 @@ def solve_bdf(f: Callable, t0, tf, y0, args=None,
         last = jnp.abs(st.h) >= jnp.abs(remaining)
         h = jnp.where(last, remaining, st.h)
         h = jnp.where(h == 0.0, eps, h)
-        # NOTE: compare h values, don't test h/st.h != 1 — XLA:TPU divides via
-        # a*reciprocal(b) (not correctly rounded), so x/x can differ from 1.0
+        # NOTE: compare h values, don't test h/st.h != 1 — a compiled division
+        # may be a*reciprocal(b) (not correctly rounded): x/x can differ from 1
         clamped = st.active & (h != st.h)
         fac0 = jnp.where(clamped, h / st.h, 1.0)
         if _mesh_size:
@@ -566,8 +565,8 @@ def solve_bdf(f: Callable, t0, tf, y0, args=None,
                 lambda _: (st.lu, st.piv, jnp.ones((m,), bool), st.c_fact),
                 None)
             if use_pallas:
-                from janus_tpu.solve.radau import _pallas_lu_solve
-                solve_corr = lambda r: _pallas_lu_solve(lu_m, r)  # noqa: E731
+                from janus_tpu.ops import lu_solve as kernel_solve
+                solve_corr = lambda r: kernel_solve(lu_m, r)  # noqa: E731
             else:
                 solve_corr = lambda r: lu_solve(lu_m, piv_m, r)  # noqa: E731
         singular = st.active & ~fact_ok

@@ -9,12 +9,12 @@ flags) are static aux data.
 
 from __future__ import annotations
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax.numpy as jnp
 
 
 def _static(default):
-    return struct.field(pytree_node=False, default=default)
+    return struct.field(static=True, default=default)
 
 
 @struct.dataclass
@@ -55,24 +55,21 @@ class Options:
     # also store the accepted state per recorded step (solout buffer role)
     record_states: bool = _static(False)
     # compensated (double-word) accumulation of y and t across steps: removes
-    # the one-ulp-per-step f32 drift so rtol ~1e-6 holds on long horizons on
-    # TPU hardware f32 (radau family; no-op cost in f64)
+    # the one-ulp-per-step f32 drift so rtol ~1e-6 holds on long horizons in
+    # f32 (radau family; no-op cost in f64)
     compensated: bool = _static(False)
     # partial pivoting in the stage LU (True = robust default; False is
     # faster and safe for the strongly diagonally-dominant iteration
     # matrices (gamma/h·M − J) of very stiff regimes)
     pivoting: bool = _static(True)
-    # use the fused Pallas SoA LU kernels for the stage factor/solves
-    # (LU paths of radau, rodas, bdf/NDF, and seulex; requires
-    # pivoting=False — the kernel is pivot-free). Measured 1.27x
-    # END-TO-END on the 65k-lane radau bench config on chip (1.20M ->
-    # 1.53M traj/s w/ 2 IND dirs) AND ~30x faster XLA compiles (the
-    # unrolled jnp LU's trace is the compile hot spot); rodas/bdf/seulex
-    # A/B in experiments/pallas_families_chip.py. Dispatches to
-    # the jnp path off-TPU. NOT compatible with differentiating THROUGH the
-    # solve by jax.jvp/jax.grad transforms (Pallas kernels carry no AD
-    # rules) — IND tangents and the continuous adjoint work (they apply the
-    # factors linearly, never differentiate them).
+    # run the stage factor/solves through the Pallas stage-LU kernel
+    # (janus_tpu.ops; LU paths of radau, rodas, bdf/NDF and seulex). GPU
+    # only: config.use_stage_lu_kernel raises on any other platform and
+    # when pivoting=True (the kernel is pivot-free). NOT compatible with
+    # differentiating THROUGH the solve by jax.jvp/jax.grad transforms
+    # (Pallas kernels carry no AD rules) — IND tangents and the continuous
+    # adjoint work (they apply the factors linearly, never differentiate
+    # them).
     pallas_lu: bool = _static(False)
     # keep a Householder-QR factorization alive as a per-lane fallback when
     # the stage LU breaks (zero/tiny pivot — e.g. pivoting=False on
@@ -84,14 +81,14 @@ class Options:
     qr_fallback: bool = _static(False)
     # stage linear solver for the radau collocation systems: "lu" = dense
     # unrolled batched LU (D up to a few tens); "gmres" = matrix-free
-    # batched GMRES(k) with a tridiagonal preconditioner (PCR on TPU,
-    # Thomas on CPU) — the large-D method-of-lines path (the reference's
-    # decom_rc_gmres role, odesolvers/linsolve.py:61-110); "tridiag" =
+    # batched GMRES(k) with a tridiagonal preconditioner (PCR or Thomas,
+    # config.tridiag_method()) — the large-D method-of-lines path (the
+    # reference's decom_rc_gmres role, odesolvers/linsolve.py:61-110); "tridiag" =
     # DIRECT solve of the tridiagonal part of the stage operator (no
     # Krylov work at all) — a modified-Newton iteration matrix, exact for
     # 3-point-stencil (1-D MOL) Jacobians, policed by the Newton
     # convergence monitor otherwise. gmres_iters is the static Arnoldi
-    # depth k (no restart; no data-dependent control flow on TPU).
+    # depth k (no restart; no data-dependent control flow).
     stage_solver: str = _static("lu")
     gmres_iters: int = _static(20)
     # stage-preconditioner STRUCTURE for the matrix-free path

@@ -28,14 +28,14 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 
-# f32 einsums must not be demoted to bf16 MXU passes on TPU
+# f32 einsums must not run at reduced precision (TF32 on the GPU)
 _EINSUM_PRECISION = jax.lax.Precision.HIGHEST
-import numpy as np
 
+from janus_tpu import config
 from janus_tpu.linalg.smalllu import lu_factor, lu_solve, lu_ok
 from janus_tpu.solve import common as cm
 from janus_tpu.solve.events import (handle_events, init_event_state,
@@ -146,27 +146,12 @@ def _build_iter_matrices(tab, h, jac, mass=None):
 
 
 def _pallas_lu_factor(a, pivot=False):
-    """Pivot-free SoA Pallas LU of [..., D, D] (Options.pallas_lu): the
-    AoS↔SoA transposes at the call boundary are the integration cost and
-    the kernel still wins 1.27× end-to-end at the bench shape (chip A/B,
-    experiments/pallas_lu_chip.py)."""
-    from janus_tpu.ops.smalllu_pallas import lu_factor_t
-    batch = a.shape[:-2]
+    """Pivot-free Pallas LU of [..., D, D] (Options.pallas_lu); the packed
+    factors are those of ``lu_factor(pivot=False)``, with identity pivots."""
+    from janus_tpu.ops.smalllu_pallas import lu_factor as kernel_factor
     d = a.shape[-1]
-    m = int(np.prod(batch))
-    lu = lu_factor_t(a.reshape(m, d * d).T).T.reshape(*batch, d, d)
-    piv = jnp.broadcast_to(jnp.arange(d, dtype=jnp.int32), batch + (d,))
-    return lu, piv
-
-
-def _pallas_lu_solve(lu, b):
-    """Substitution with Pallas-packed factors; b [..., D] (vector rhs)."""
-    from janus_tpu.ops.smalllu_pallas import lu_solve_t
-    batch = lu.shape[:-2]
-    d = lu.shape[-1]
-    m = int(np.prod(batch))
-    x = lu_solve_t(lu.reshape(m, d * d).T, b.reshape(m, d).T)
-    return x.T.reshape(*batch, d)
+    piv = jnp.broadcast_to(jnp.arange(d, dtype=jnp.int32), a.shape[:-1])
+    return kernel_factor(a), piv
 
 
 def _factorize(tab, h, jac, mass=None, pivot=True, factor=None):
@@ -260,7 +245,7 @@ def _newton(tab, f, t, y, h, z0, scale, tol, lu_r, piv_r, lu_c, piv_c,
     # scaled Newton norm cannot drop below ~eps·|y|/scale. Lanes whose true
     # contraction is moderate reach this floor with measured rate ≈ 1
     # (successive corrections are rounding noise) and would loop until the
-    # divergence test kills them — observed on-chip at f32 rtol 1e-6 on
+    # divergence test kills them — observed at f32 rtol 1e-6 on
     # heterogeneous-μ VdP sweeps (~1% of lanes NEWTON_STALL). At the floor
     # the iterate is the best this arithmetic can represent: converged.
     # Inactive in f64 (floor ≈ 1e-10·tol).
@@ -283,9 +268,7 @@ def _newton(tab, f, t, y, h, z0, scale, tol, lu_r, piv_r, lu_c, piv_c,
         return jnp.any(ns.running)
 
     def body(ns):
-        # stage RHS evaluations (measured: stacking all s stages into one
-        # s·M-batch f call changes nothing on TPU — XLA already schedules
-        # the three small calls well — so keep the simple form)
+        # stage RHS evaluations, one f call per stage
         fs = []
         for i in range(s):
             fs.append(f(t + c_nodes[i] * h, y + ns.z[:, i, :], args))
@@ -509,10 +492,8 @@ def _gmres_core(tab, jv, bands, h, mass_ops, iters):
     monitor polices contraction exactly as it does for stale Jacobians, so
     a poor match slows or fails loudly, never silently corrupts.
     """
-    # backend-dispatched preconditioner sweeps: PCR (log-depth parallel
-    # cyclic reduction) on TPU — the Thomas scan's 2N sequential [M]-wide
-    # steps starve the VPU (measured 3.5x at D=128) — Thomas on CPU where
-    # PCR's ~8x FLOP multiplier loses
+    # preconditioner sweeps by config.tridiag_method(): PCR (log-depth
+    # parallel cyclic reduction) on the GPU, Thomas scans on the CPU
     from janus_tpu.linalg.gmres import (gmres_batched, tridiag_solve_auto
                                         as tridiag_solve,
                                         tridiag_solve_complex_auto
@@ -894,15 +875,14 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
         raise ValueError("stage_solver='gmres' is matrix-free (J·v by jvp, "
                          "3-probe tridiagonal preconditioner); drop jac=")
     use_qr_fb = opts.qr_fallback and not use_gmres
-    use_pallas = (opts.pallas_lu and not use_gmres
-                  and jax.default_backend() == "tpu")
-    if opts.pallas_lu:
-        if opts.pivoting:
-            raise ValueError("Options(pallas_lu=True) needs pivoting=False "
-                             "(the fused SoA kernel is pivot-free)")
-        if opts.qr_fallback:
-            raise ValueError("pallas_lu and qr_fallback are mutually "
-                             "exclusive (pick one stage-solve override)")
+    use_pallas = config.use_stage_lu_kernel(opts)
+    if use_pallas and use_gmres:
+        raise ValueError("Options(pallas_lu=True) is the LU stage solver; "
+                         "it does not combine with stage_solver="
+                         f"{opts.stage_solver!r}")
+    if use_pallas and opts.qr_fallback:
+        raise ValueError("pallas_lu and qr_fallback are mutually "
+                         "exclusive (pick one stage-solve override)")
     s = opts.min_stages
     tab = radau_tableau(s)
     t0, tf, y0 = cm.broadcast_batch(t0, tf, y0)
@@ -1178,8 +1158,9 @@ def solve_radau(f: Callable, t0, tf, y0, args=None,
                     jnp.any(needf), do_fact, keep_fact, operand=None)
             solver = None
             if use_pallas:
-                solver = (lambda b: _pallas_lu_solve(lu_r, b),
-                          lambda p, b: _pallas_lu_solve(lu_c[:, p], b))
+                from janus_tpu.ops import lu_solve as kernel_solve
+                solver = (lambda b: kernel_solve(lu_r, b),
+                          lambda p, b: kernel_solve(lu_c[:, p], b))
 
         qr_vs_r, qr_r_r = st.qr_vs_r, st.qr_r_r
         qr_vs_c, qr_r_c = st.qr_vs_c, st.qr_r_c

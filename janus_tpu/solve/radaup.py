@@ -2,7 +2,7 @@
 
 The reference's RadauTe adapts the stage count per trajectory from Newton
 contractivity Θ (order-change logic radaute_impl.hpp:600-650; per-stage sample
-grouping set_active_stage :656-669, skipping empty groups). Lockstep TPU
+grouping set_active_stage :656-669, skipping empty groups). Lockstep batched
 version: the step body loops over the DISTINCT allowed stage counts; each
 order's Newton runs under ``lax.cond(any(lane holds this order))`` so absent
 orders cost nothing — the exact analogue of the reference's group skipping.
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 
@@ -42,7 +42,7 @@ def ladder_orders(opts: Options, dtype, warn: bool = False):
     """The distinct stage counts the variable-order ladder may visit.
 
     f32 caps the ladder at s=5 (order 9): the s=7 transformed stage systems
-    lose the simplified Newton at eps=1.2e-7 (measured on chip) unless the
+    lose the simplified Newton at eps=1.2e-7 (observed in f32) unless the
     caller pinned min_stages == max_stages == 7 explicitly. Shared with
     ``radau_adjoint`` so the recorded-mesh width matches the forward ladder.
     """
@@ -54,7 +54,7 @@ def ladder_orders(opts: Options, dtype, warn: bool = False):
             warnings.warn(
                 "radaup: capping the variable-order ladder at s=5 (order 9) "
                 "in float32 — the s=7 transformed stage systems lose the "
-                "simplified Newton at eps=1.2e-7 (measured on chip); pin "
+                "simplified Newton at eps=1.2e-7; pin "
                 "min_stages=max_stages=7 to override", stacklevel=3)
         max_stages = 5
     return tuple(s for s in (1, 3, 5, 7)

@@ -36,10 +36,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 
+from janus_tpu import config
 from janus_tpu.linalg.smalllu import lu_factor, lu_solve, lu_ok
 from janus_tpu.solve import common as cm
 from janus_tpu.solve.events import (handle_events, init_event_state,
@@ -163,10 +164,7 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
                          "weighting) is honored by 'radau'/'radaup' only; "
                          "rodas is index-1 capable via mass= alone")
     specs = normalize_events(events)
-    use_pallas = opts.pallas_lu and jax.default_backend() == "tpu"
-    if opts.pallas_lu and opts.pivoting:
-        raise ValueError("Options(pallas_lu=True) needs pivoting=False "
-                         "(the fused SoA kernel is pivot-free)")
+    use_pallas = config.use_stage_lu_kernel(opts)
     t0, tf, y0 = cm.broadcast_batch(t0, tf, y0)
     m, dim = y0.shape
     dtype = y0.dtype
@@ -375,10 +373,10 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
         hc = h[:, None]
 
         if use_pallas:
-            from janus_tpu.solve.radau import _pallas_lu_solve
+            from janus_tpu.ops import lu_solve as kernel_solve
 
             def slv(rhs):
-                return _pallas_lu_solve(lu_m, rhs)
+                return kernel_solve(lu_m, rhs)
         else:
             def slv(rhs):
                 return lu_solve(lu_m, piv_m, rhs)
@@ -521,7 +519,7 @@ def solve_rodas(f: Callable, t0, tf, y0, args=None,
                 def slv_k(rhs):
                     if use_pallas:
                         return jax.vmap(
-                            lambda b: _pallas_lu_solve(lu_m, b))(rhs)
+                            lambda b: kernel_solve(lu_m, b))(rhs)
                     return jax.vmap(
                         lambda b: lu_solve(lu_m, piv_m, b))(rhs)
 

@@ -10,7 +10,7 @@ refresh only when the stability-check theta exceeds it, :59,328), the
 stability check on the first substep of levels k<=1 (:1020-1334), and the
 STEPFAC/KFAC order-window controller (:245-251).
 
-TPU re-design (one step ATTEMPT per lax.while_loop body, house lockstep
+Batched re-design (one step ATTEMPT per lax.while_loop body, house lockstep
 style):
 
 - the ladder is a STATIC Python loop over levels, each gated by ``lax.cond``
@@ -41,11 +41,12 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import flax.struct as struct
+from janus_tpu import pytree as struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from janus_tpu import config
 from janus_tpu.linalg.smalllu import lu_factor, lu_solve, lu_ok
 from janus_tpu.solve import common as cm
 from janus_tpu.solve.events import (handle_events, init_event_state,
@@ -161,10 +162,7 @@ def solve_seulex(f: Callable, t0, tf, y0, args=None,
     tangents raise — use jax.jvp there).
     """
     opts = options if options is not None else Options()
-    use_pallas = opts.pallas_lu and jax.default_backend() == "tpu"
-    if opts.pallas_lu and opts.pivoting:
-        raise ValueError("Options(pallas_lu=True) needs pivoting=False "
-                         "(the fused SoA kernel is pivot-free)")
+    use_pallas = config.use_stage_lu_kernel(opts)
     if opts.nind2 or opts.nind3:
         raise ValueError("Options.nind2/nind3 (higher-index DAE error "
                          "weighting) is honored by 'radau'/'radaup' only; "
@@ -400,10 +398,10 @@ def solve_seulex(f: Callable, t0, tf, y0, args=None,
                     mass[None] if mass.ndim == 2 else mass)
                 amat = mm / hsub[:, None, None] - jmat
                 if use_pallas:
-                    from janus_tpu.solve.radau import (_pallas_lu_factor,
-                                                       _pallas_lu_solve)
+                    from janus_tpu.ops import lu_solve as kernel_solve
+                    from janus_tpu.solve.radau import _pallas_lu_factor
                     lu, piv = _pallas_lu_factor(amat)
-                    lu_solve_l = lambda l, p, b: _pallas_lu_solve(l, b)  # noqa: E731
+                    lu_solve_l = lambda l, p, b: kernel_solve(l, b)  # noqa: E731
                 else:
                     lu, piv = lu_factor(amat, pivot=opts.pivoting)
                     lu_solve_l = lu_solve

@@ -178,7 +178,7 @@ def test_jet_fd_property(rng):
 
 def test_matmul_einsum_use_highest_precision(rng):
     """Repo precision rule (CLAUDE.md): jet contractions must request
-    Precision.HIGHEST so XLA:TPU cannot demote f32 einsums to bf16 inputs.
+    Precision.HIGHEST so XLA cannot run f32 einsums at reduced precision.
     Structural pin: every dot_general in the lowered jaxpr carries it."""
     a = make_jet(rng, (4, 5), n=2)
     b = make_jet(rng, (5, 3), n=2)
@@ -203,10 +203,10 @@ def test_matmul_einsum_use_highest_precision(rng):
 
 
 def test_jet_f32_on_chip_dtype(rng):
-    """On-chip-dtype regression: jet arithmetic in float32 must stay at f32
-    accuracy (the HIGHEST-precision contractions prevent XLA:TPU demoting
-    f32 einsums to bf16 — here we pin the numerics in the dtype the chip
-    actually uses, vs an f64 oracle)."""
+    """float32 regression: jet arithmetic in float32 must stay at f32
+    accuracy (the HIGHEST-precision contractions keep XLA from running f32
+    einsums at reduced precision — here we pin the numerics in f32, vs an
+    f64 oracle)."""
     a64 = make_jet(rng, (16, 8), n=3)
     b64 = make_jet(rng, (8, 4), n=3)
     to32 = lambda j: J.Jet(jnp.asarray(j.r, jnp.float32),

@@ -1,6 +1,6 @@
 """Krylov preconditioners (reference GMRES+ILU role, linsolve.py:60-111).
 
-Structure-exploiting TPU-native preconditioners: block-Jacobi (colored-probe
+Structure-exploiting batched preconditioners: block-Jacobi (colored-probe
 diagonal blocks + batched LU) and tridiagonal (3-probe band + Thomas scan).
 Checked against dense solves and exercised inside newton_krylov on a stiff
 method-of-lines boundary-value residual.

@@ -8,10 +8,13 @@ permuted mass matrix whose iteration matrix γ/h·M − J has a STRUCTURAL
 zero leading pivot at every h — h-halving can never fix it.
 """
 
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from janus_tpu import config
 from janus_tpu.solve import Options, SUCCESS
 from janus_tpu.solve.radau import solve_radau
 
@@ -103,29 +106,39 @@ def test_qr_fallback_default_off_is_untouched():
 
 
 # ---- Options(pallas_lu=...) wiring (shares this file: the other stage-
-# solve override; the kernel itself is covered by tests/test_pallas_ops.py
-# and the chip A/B in experiments/pallas_lu_chip.py: 1.27x end-to-end) ----
+# solve override; the kernel itself is covered by tests/test_pallas_ops.py) --
 
 def test_pallas_lu_option_validation():
     f = lambda t, y, a: -y                              # noqa: E731
     y0 = jnp.zeros((1, 2))
     with pytest.raises(ValueError):                     # kernel is pivot-free
-        solve_radau(f, 0.0, 1.0, y0,
-                    options=Options(pallas_lu=True, pivoting=True))
-    with pytest.raises(ValueError):                     # one override at a time
-        solve_radau(f, 0.0, 1.0, y0,
-                    options=Options(pallas_lu=True, pivoting=False,
-                                    qr_fallback=True))
+        config.use_stage_lu_kernel(Options(pallas_lu=True, pivoting=True),
+                                   platform="gpu")
+    with mock.patch.object(config, "backend", lambda: "gpu"):
+        with pytest.raises(ValueError):          # one override at a time
+            solve_radau(f, 0.0, 1.0, y0,
+                        options=Options(pallas_lu=True, pivoting=False,
+                                        qr_fallback=True))
+        with pytest.raises(ValueError):          # LU path only
+            solve_radau(f, 0.0, 1.0, y0,
+                        options=Options(pallas_lu=True, pivoting=False,
+                                        stage_solver="tridiag"))
+        from janus_tpu.solve import solve_ivp
+        for method in ("radaup", "dopri5", "bdf2", "grk4t"):
+            with pytest.raises(ValueError, match="pallas_lu"):  # no kernel
+                solve_ivp(f, (0.0, 1.0), y0, method=method,
+                          options=Options(pallas_lu=True, pivoting=False))
 
 
-def test_pallas_lu_option_dispatches_to_jnp_off_tpu():
-    """On CPU the option is a no-op dispatch: identical solve results."""
+@pytest.mark.parametrize("method", ["radau", "rodas", "bdf", "seulex"])
+def test_pallas_lu_option_raises_off_gpu(method):
+    """The kernel exists for the GPU only: asking for it elsewhere raises
+    instead of silently running the plain LU."""
     from janus_tpu.models.problems import vdp_rhs
+    from janus_tpu.solve import solve_ivp
 
     y0 = jnp.array([[2.0, 0.0]])
-    a = solve_radau(vdp_rhs, 0.0, 1.0, y0, args=100.0,
-                    options=Options(rtol=1e-8, atol=1e-11, pivoting=False))
-    b = solve_radau(vdp_rhs, 0.0, 1.0, y0, args=100.0,
-                    options=Options(rtol=1e-8, atol=1e-11, pivoting=False,
-                                    pallas_lu=True))
-    np.testing.assert_array_equal(np.asarray(a.y), np.asarray(b.y))
+    with pytest.raises(ValueError, match="GPU only"):
+        solve_ivp(vdp_rhs, (0.0, 1.0), y0, method=method, args=100.0,
+                  options=Options(rtol=1e-8, atol=1e-11, pivoting=False,
+                                  pallas_lu=True))

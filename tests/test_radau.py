@@ -176,7 +176,7 @@ def test_high_order_radau(s):
 def test_compensated_f32_long_horizon():
     """Options(compensated=True): double-word y/t accumulation must hold
     rtol~1e-6-class global accuracy in f32 over a long horizon where plain
-    f32 drifts (round-2 north-star: rtol 1e-6 on TPU hardware f32)."""
+    f32 drifts (the rtol 1e-6 in f32 use case)."""
     import numpy as np
     exact = [np.cos(200.0), -np.sin(200.0)]
     errs = {}
@@ -196,7 +196,7 @@ def test_f32_newton_floor_no_stall():
     """f32 at rtol 1e-6: lanes with moderate Newton contraction hit the
     rounding floor (scaled dw can't drop below ~eps/rtol) with measured
     rate ~= 1 and used to be killed by the divergence test -> NEWTON_STALL
-    (observed on-chip at these mu values). The floor test must count them
+    (observed in f32 at these mu values). The floor test must count them
     converged, with accuracy still at tolerance."""
     mus32 = jnp.asarray([38.52, 77.83, 84.15, 85.22, 240.0], jnp.float32)
     m = mus32.shape[0]

@@ -218,8 +218,8 @@ def test_gmres_ind_tangents_match_fd():
 
 
 def test_pcr_tridiag_matches_thomas():
-    """Parallel-cyclic-reduction tridiagonal solves (the TPU stage
-    preconditioner; backend-dispatched in the solver) must match the Thomas
+    """Parallel-cyclic-reduction tridiagonal solves (the GPU stage
+    preconditioner; dispatched by config.tridiag_method()) must match the Thomas
     scans, real and split-real complex, across sizes incl. non-powers of 2."""
     from janus_tpu.control.precond import tridiag_solve
     from janus_tpu.linalg.gmres import (tridiag_solve_pcr,
@@ -250,8 +250,7 @@ def test_pcr_tridiag_matches_thomas():
 def test_tridiag_direct_stage_solver():
     """stage_solver='tridiag': DIRECT (PCR/Thomas) solve of the stage
     operator's tridiagonal part — a modified-Newton iteration matrix that
-    is exact for 1-D 3-point-stencil MOL Jacobians (chip: 3.02 ms/solve at
-    D=128, 57x the Thomas+GMRES(20) starting point). Solve must match
+    is exact for 1-D 3-point-stencil MOL Jacobians. Solve must match
     scipy; the continuous adjoint must ride the same direct solves."""
     from scipy.integrate import solve_ivp as ssolve
     from janus_tpu.solve.adjoint import radau_adjoint

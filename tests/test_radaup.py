@@ -69,7 +69,7 @@ def test_radaup_dense_and_events():
 
 def test_f32_caps_order_ladder():
     """f32 lanes must not be raised to s=7 (order-13 stage systems lose the
-    f32 Newton — measured on chip); the ladder caps at s=5 and the stiff
+    f32 Newton); the ladder caps at s=5 and the stiff
     solve succeeds."""
     m = 16
     mus = jnp.asarray(np.logspace(0.5, 3.0, m), jnp.float32)
